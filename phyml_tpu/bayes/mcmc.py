@@ -207,12 +207,10 @@ class MCMC:
             5.0 if "cov_alpha" in subst_params else 0.0,
             # mala_times: one move updates ALL heights + the clock;
             # costs ~2 gradient evaluations, so weight it like a
-            # handful of scalar moves.  Requires a differentiable
-            # likelihood path (the scan engine; Pallas kernels have
-            # no VJP) and is disabled otherwise.
-            (0.5 * n) if (not getattr(engine, "pallas_tile", 0)
-                          and not getattr(engine, "slot_tile", 0)
-                          and not fastlk) else 0.0,
+            # handful of scalar moves.  It differentiates _lnL, the
+            # engine's traced scan (_loglik); only the quadratic
+            # fastlk surface has no gradient rule here.
+            (0.5 * n) if not fastlk else 0.0,
         ])
         if "kappa" not in subst_params:
             w[7] = 0.0

@@ -80,6 +80,50 @@ def simulate_alignment(
     return names, seqs
 
 
+BENCH_SEED = 20260817
+
+
+def bench_problem(datatype: str = "nt", n_taxa: int = 128,
+                  n_sites: int = 4096, seed: int = BENCH_SEED):
+    """A seeded simulated problem: a random tree (mean branch length
+    0.08) and an alignment evolved along it, under GTR+G4 (rates
+    1.2, 3.0, 0.8, 1.1, 4.0, 1.0; frequencies 0.3, 0.2, 0.3, 0.2;
+    alpha 0.7) for datatype "nt", or LG+G4 (alpha 0.9) for "aa".
+
+    Returns (aln, topo, model, params, names, seqs).  The RNG is drawn
+    in a fixed order (tree, then sites), so a seed always gives the
+    same problem; 128 x 4096 at seed 20260817 are the c1 / c1-aa
+    problems of chip_smoke.py."""
+    import jax.numpy as jnp
+
+    from phyml_tpu import datatypes
+    from phyml_tpu.io.alignment import compact
+    from phyml_tpu.models.substitution import SubstModel
+    from phyml_tpu.topology import Topology
+
+    rng = np.random.default_rng(seed)
+    topo = Topology.random(n_taxa, rng, mean_blen=0.08)
+    if datatype == "nt":
+        model = SubstModel(datatype="nt", name="GTR", n_classes=4,
+                           freqs_mode="fixed",
+                           fixed_freqs=np.array([0.3, 0.2, 0.3, 0.2]))
+        params = model.init_params()
+        params["rr_val"] = jnp.log(jnp.asarray(
+            [1.2, 3.0, 0.8, 1.1, 4.0, 1.0]))
+        params["alpha"] = jnp.asarray(0.7)
+    elif datatype == "aa":
+        model = SubstModel(datatype="aa", name="LG", n_classes=4,
+                           freqs_mode="model")
+        params = model.init_params()
+        params["alpha"] = jnp.asarray(0.9)
+    else:
+        raise ValueError(f"datatype must be nt or aa, got {datatype!r}")
+    names, seqs = simulate_alignment(topo, model, params, n_sites, rng)
+    aln = compact(datatypes.encode_sequences(seqs, datatype), names,
+                  datatype)
+    return aln, topo, model, params, names, seqs
+
+
 def write_phylip(path: str, names, seqs) -> None:
     """Sequential PHYLIP (readable by both frameworks)."""
     with open(path, "w") as fh:

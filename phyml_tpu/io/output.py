@@ -50,7 +50,7 @@ def format_stats(
     L = []
     L.append(" " + "o" * 96)
     L.append(f"{'---  phyml-tpu ' + __version__ + '  ---':^96}")
-    L.append(" a TPU-native phylogenetic maximum-likelihood engine "
+    L.append(" a GPU phylogenetic maximum-likelihood engine "
              "(PhyML-compatible)")
     L.append(" " + "o" * 96)
     L.append("")

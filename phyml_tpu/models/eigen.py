@@ -19,7 +19,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 from jax import lax
 
-# P(t) reconstruction must not round through bf16 on TPU: a 2^-10
+# P(t) reconstruction must not round through bf16 or TF32: a 2^-10
 # matmul error in P is a ~1e-3 per-site likelihood error.
 _PREC = lax.Precision.HIGHEST
 

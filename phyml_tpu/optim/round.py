@@ -134,13 +134,9 @@ def _make_scalar_optimizer(engine, slot_sig, grid, zooms):
     """Compile the ENTIRE multi-zoom joint line search into ONE
     device program (a `lax.while_loop` over zoom levels).
 
-    The previous host-driven version paid ~2 device round-trips per
-    zoom (~40 ms each on a remote-attached TPU) AND silently reset
-    its brackets to the full parameter range on every call, capping
-    resolution at (hi-lo)/(grid-1)^zooms — on the nucleic GTR+G4
-    config that left ~0.02 lnL unconverged (measured r4).  On-device
-    zooming costs one dispatch for arbitrarily many zoom levels and
-    runs until the bracket step drops below brent_tol.
+    A host-driven version would pay ~2 device round-trips per zoom;
+    on-device zooming costs one dispatch for arbitrarily many zoom
+    levels and runs until the bracket step drops below brent_tol.
 
     slot_sig: static tuple of (name, idx, tf_kind, lo, hi).
     Equivalent of the reference's per-parameter Brent searches

@@ -6,11 +6,14 @@ seeds (srand(seed+rank), main.c:84); replicate tree strings travel to
 rank 0 (MPI_Ssend/Recv, mpi_boot.c:313-314) and the per-edge
 bipartition counts reduce with MPI_Reduce(SUM) (mpi_boot.c:335-342).
 
-TPU-native design: processes come from `jax.distributed.initialize`
-(one per host; each owns its local chips, so within a replicate the
-search uses the host's devices).  Replicates are round-robin over
+Design: processes come from `jax.distributed.initialize`, one per
+GPU (the launcher pins each to its card, e.g. with
+CUDA_VISIBLE_DEVICES, and gives every process the coordinator's
+address, the process count and its id).  Every process runs the ML
+search; process 0's tree and parameters are then broadcast so all
+replicate counts refer to one tree.  Replicates are round-robin over
 process ids with per-REPLICATE seeds (stronger than the reference's
-per-rank seeds: counts are bit-identical regardless of the farming
+per-rank seeds: counts are identical regardless of the farming
 layout).  The count reduction is a single psum-equivalent over a
 dense per-edge vector via multihost allgather; no strings cross the
 wire.
@@ -32,18 +35,46 @@ def replicate_shard(n_replicates: int, process_index: int,
     return list(range(process_index, n_replicates, process_count))
 
 
-def initialize_distributed(**kwargs) -> tuple[int, int]:
-    """jax.distributed.initialize from the standard env variables
-    (JAX_COORDINATOR_ADDRESS / num_processes / process_id or a cluster
-    scheduler).  Returns (process_index, process_count).  Safe to call
-    in single-process runs: initialization errors degrade to (0, 1)."""
+def initialize_distributed(coordinator_address: str | None = None,
+                           num_processes: int | None = None,
+                           process_id: int | None = None,
+                           **kwargs) -> tuple[int, int]:
+    """jax.distributed.initialize with the coordinator address,
+    process count and process id given here; any left None come from
+    the environment or a cluster scheduler JAX detects.  Must run
+    before the first device use.  Returns (process_index,
+    process_count); raises RuntimeError when initialization fails."""
     import jax
 
+    given = dict(coordinator_address=coordinator_address,
+                 num_processes=num_processes, process_id=process_id)
+    kwargs.update({k: v for k, v in given.items() if v is not None})
     try:
         jax.distributed.initialize(**kwargs)
-    except Exception:
-        pass
+    except Exception as exc:
+        raise RuntimeError(
+            f"jax.distributed.initialize({kwargs}) failed: {exc}") from exc
     return jax.process_index(), jax.process_count()
+
+
+def share_from_process0(topo, params):
+    """Process 0's topology and parameters on every process.  Each
+    process runs the same search, but XLA may choose other algorithms
+    per process and rounding can then steer two searches apart; the
+    replicate counts must all refer to one tree."""
+    import jax
+    import jax.numpy as jnp
+
+    from phyml_tpu.topology import Topology
+
+    if jax.process_count() == 1:
+        return topo, params
+    from jax.experimental import multihost_utils
+
+    edges, blen, leaves = multihost_utils.broadcast_one_to_all(
+        (topo.edges, topo.blen, params))
+    return (Topology(topo.n_otu, np.asarray(edges), np.asarray(blen)),
+            jax.tree_util.tree_map(jnp.asarray, leaves))
 
 
 def run_bootstrap_distributed(

@@ -1,12 +1,11 @@
 """Device-mesh plumbing: site sharding + bootstrap farming axes.
 
 Replaces the reference's MPI layer (mpi_boot.c — Bcast/Ssend/Recv/
-Reduce of strings and count vectors between ranks).  TPU-native
-design (SURVEY.md §2.3):
+Reduce of strings and count vectors between ranks).  Design
+(SURVEY.md §2.3):
 
   * 2-level mesh ("boot", "sites").  Bootstrap replicates ride the
-    outer axis (DCN across hosts in a multi-host job), site patterns
-    ride the inner axis (ICI within a slice).
+    outer axis, site patterns ride the inner axis.
   * Sharding is declarative: the engine's pattern-axis arrays are
     placed with a NamedSharding and XLA's SPMD partitioner turns the
     jitted likelihood programs into collective-communicating programs
@@ -63,17 +62,11 @@ def shard_pattern_arrays(engine, mesh: Mesh, axis: str = "sites"):
     return engine
 
 
-def sharded_engine(aln, model, mesh: Mesh, dtype=None, axis="sites",
-                   use_pallas=None):
+def sharded_engine(aln, model, mesh: Mesh, dtype=None, axis="sites"):
     """Build a LikelihoodEngine whose pattern axis is sharded over
-    `axis` of `mesh`.  Pads patterns so the axis divides evenly.
-
-    When the fused Pallas kernel is enabled (auto on TPU; force with
-    use_pallas=True for interpret-mode tests on the virtual CPU mesh)
-    it runs PER SHARD under shard_map — each device executes the full
-    tree traversal on its local pattern block, and the only collective
-    is the weighted lnL reduction (psum), mirroring the reference's
-    site independence (mpi_boot.c)."""
+    `axis` of `mesh`.  Pads patterns so the axis divides evenly; the
+    only collective is the weighted lnL reduction, mirroring the
+    reference's site independence (mpi_boot.c)."""
     import jax.numpy as jnp
     from phyml_tpu.ops.likelihood import LikelihoodEngine
 
@@ -82,9 +75,5 @@ def sharded_engine(aln, model, mesh: Mesh, dtype=None, axis="sites",
     eng = LikelihoodEngine(
         aln, model, dtype=dtype,
         pattern_pad=128 * n_shards,
-        use_pallas=use_pallas,
     )
-    shard_pattern_arrays(eng, mesh, axis)
-    if eng.pallas_tile and n_shards > 1:
-        eng.attach_mesh(mesh, axis)
-    return eng
+    return shard_pattern_arrays(eng, mesh, axis)

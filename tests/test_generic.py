@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.conftest import EXAMPLES
+from conftest import EXAMPLES
 
 
 def _write_phylip(path, names, seqs):

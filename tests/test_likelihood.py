@@ -192,36 +192,3 @@ def test_system_cache_invalidates_on_param_mutation(nucleic):
 
     fresh = LikelihoodEngine(nucleic, model, dtype=jnp.float64)
     assert float(fresh.loglik(params, ta)) == pytest.approx(lnl2)
-
-
-def test_host_child_lru_keeps_recent_entries():
-    """VERDICT r4 #10: crossing the _HOST_CHILD capacity must evict
-    ONE-AT-A-TIME (LRU), never clear wholesale - a long bootstrap run
-    that crosses the threshold must keep its recent trees' host
-    tables so the slot-kernel path stays available."""
-    import numpy as np
-
-    from phyml_tpu.ops import likelihood as L
-    from phyml_tpu.ops.likelihood import tree_arrays
-    from phyml_tpu.topology import Topology
-
-    old_cap = L._HOST_CHILD_CAP
-    L._HOST_CHILD.clear()
-    L._HOST_CHILD_CAP = 32
-    try:
-        rng = np.random.default_rng(0)
-        keep = []
-        for i in range(80):                 # cross the cap 2.5x
-            topo = Topology.random(8, rng, mean_blen=0.1)
-            ta = tree_arrays(topo.rooted())
-            keep.append(ta)                 # hold refs: ids stay live
-        assert len(L._HOST_CHILD) == 32
-        # the most recent 32 trees keep their host child tables
-        for ta in keep[-32:]:
-            assert id(ta.child) in L._HOST_CHILD
-        # the oldest were evicted individually, not wholesale
-        for ta in keep[:40]:
-            assert id(ta.child) not in L._HOST_CHILD
-    finally:
-        L._HOST_CHILD_CAP = old_cap
-        L._HOST_CHILD.clear()

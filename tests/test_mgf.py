@@ -59,8 +59,7 @@ def test_engine_loglik_mgf_limits(nucleic):
 
     model = SubstModel(datatype="nt", name="HKY85", n_classes=4)
     params = model.init_params(nucleic.obs_state_freqs)
-    eng = LikelihoodEngine(nucleic, model, dtype=jnp.float64,
-                           use_pallas=False)
+    eng = LikelihoodEngine(nucleic, model, dtype=jnp.float64)
     rng = np.random.default_rng(2)
     topo = Topology.random(nucleic.n_otu, rng, mean_blen=0.08)
     ta = tree_arrays(topo.rooted(), dtype=jnp.float64)
